@@ -1,11 +1,12 @@
-"""mapping_private_tpu — a TPU-native point-cloud mapping & perception engine.
+"""mapping_private_tpu — a JAX-native point-cloud mapping & perception engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 TUM-IAS `mapping-private` ROS stack (tabletop perception, RANSAC shape
 fitting, ICP registration, C3-HLAC/GRSD voxel features, subspace object
-detection, Hough segmentation, semantic table memory), built TPU-first:
+detection, Hough segmentation, semantic table memory), built
+accelerator-first:
 
-- dense struct-of-array point/voxel tensors resident in HBM
+- dense struct-of-array point/voxel tensors resident in device memory
   (replaces `sensor_msgs::PointCloud` named channels),
 - batched grid-hash neighbor gathers (replaces `cloud_kdtree::KdTreeANN`),
 - vmapped hypothesis RANSAC (replaces serial `sample_consensus` loops),
@@ -32,11 +33,13 @@ utils         profiling, metrics, checkpointing
 
 __version__ = "0.1.0"
 
-# Metric geometry needs exact f32 products: TPU's default matmul runs bf16
-# MXU passes whose ~1e-3 absolute error poisons pose composition (4×4),
-# Rodrigues terms (W@W), and GN systems — measured as a 1.2 mm ICP
-# convergence floor that vanishes at HIGHEST.  Hot paths that can tolerate
-# bf16 opt back in explicitly with precision=DEFAULT at the call site.
+# Metric geometry needs exact f32 products: a reduced-precision matmul
+# (TF32 on a GPU, bf16 passes elsewhere) keeps ~3 decimal digits, and a
+# ~1e-3 absolute error poisons pose composition (4×4), Rodrigues terms
+# (W@W), GN systems and near-tie NN ranking — a millimetre floor under
+# ICP convergence.  "highest" means true f32.  Hot paths that can
+# tolerate less opt back in explicitly with precision=DEFAULT at the
+# call site.
 import jax as _jax
 
 _jax.config.update("jax_default_matmul_precision", "highest")

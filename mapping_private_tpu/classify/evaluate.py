@@ -2,7 +2,7 @@
 
 Implements the color_feature_classification demo workflow
 (color_feature_classification/README:1-13, scripts/demos/{all.sh,
-2.leave_one_out.sh,calcRate.sh}) TPU-natively:
+2.leave_one_out.sh,calcRate.sh}) natively in JAX:
 
   0.computeFeature.sh  → extract_corpus_features (per-view descriptors;
       feature types per test/computeFeature.cpp and the leave_one_out

@@ -1,4 +1,4 @@
-"""libsvm-compatible batched SVM prediction — `SVMClassification` TPU-native.
+"""libsvm-compatible batched SVM prediction — `SVMClassification` JAX-native.
 
 Replaces cloud_algos/src/svm_classification.cpp: the reference loads a
 libsvm model (:80-88), optionally min-max scales features — self-computed
@@ -7,7 +7,7 @@ or from a `.scp` file (:92-112, parseScaleParameterFile) — then calls
 
 Here the model file (the repo bundles 18 trained models under
 cloud_algos/svm/*.model) is parsed into dense arrays and the whole cloud
-is classified at once: the RBF kernel matrix K(X, SV) is one MXU matmul
+is classified at once: the RBF kernel matrix K(X, SV) is one matmul
 (‖x‖² + ‖s‖² − 2x·sᵀ), the one-vs-one decision values are a second
 matmul with the sv_coef matrix, and voting is a scatter-add — no
 per-point loop, no svm_node pointer chasing.

@@ -1,10 +1,10 @@
-"""Linear SVM training on TPU — the `liblinear_asako` capability.
+"""Linear SVM training in JAX — the `liblinear_asako` capability.
 
 The reference vendors a liblinear fork with a TRON (trust-region Newton)
 solver (color_feature_classification/src/libsvm_and_linear/liblinear_asako/
 libLINEAR.cpp + libLINEAR_tron.cpp) used for L2-regularized L2-loss SVC.
 
-TPU formulation: the same objective —
+Array formulation: the same objective —
 
     min_w  ½‖w‖² + C Σ_i max(0, 1 − y_i wᵀx_i)²
 

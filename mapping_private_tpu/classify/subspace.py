@@ -1,4 +1,4 @@
-"""Per-class subspace classification — `color_feature_classification` TPU-native.
+"""Per-class subspace classification — `color_feature_classification` JAX-native.
 
 Replaces the offline benchmark harness's subspace method
 (color_feature_classification/test/computeSubspace_from_file.cpp trains a
@@ -61,7 +61,7 @@ def classify_subspace(
     """
     f = jnp.asarray(features, jnp.float32)
     W = jnp.asarray(clf.axes, jnp.float32)  # (C, M, D)
-    proj = jnp.einsum("cmd,nd->ncm", W, f)  # one batched MXU matmul
+    proj = jnp.einsum("cmd,nd->ncm", W, f)  # one batched matmul
     num = jnp.linalg.norm(proj, axis=-1)  # (N, C)
     den = jnp.maximum(jnp.linalg.norm(f, axis=-1, keepdims=True), 1e-20)
     sim = num / den

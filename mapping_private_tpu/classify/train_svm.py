@@ -5,13 +5,13 @@ The reference vendors a libsvm fork and trains RBF one-vs-one SVMs
 scripts/svm/train_svm.sh); the 18 bundled models under cloud_algos/svm/
 were produced that way.  This module makes those models reproducible.
 
-TPU formulation: libsvm's dual problem per class pair —
+Array formulation: libsvm's dual problem per class pair —
 
     min_a  ½ aᵀQa − eᵀa,   0 ≤ a_i ≤ C,  yᵀa = 0,  Q_ij = y_i y_j K_ij
 
 — solved by SMO with maximal-violating-pair working-set selection
 (Keerthi et al.; libSVM.cpp Solver::select_working_set).  The kernel
-matrix is precomputed (one MXU matmul per pair), each SMO step is O(n)
+matrix is precomputed (one matmul per pair), each SMO step is O(n)
 vector work inside `lax.while_loop`, and ALL C·(C−1)/2 one-vs-one
 subproblems run as a single `vmap` over padded per-pair datasets — the
 63-object corpus trains 1,953 pairs in one traced program instead of the

@@ -104,7 +104,7 @@ class PointCloud:
         """Build a PointCloud from host arrays, padding up to ``capacity``.
 
         capacity defaults to the next multiple of 128 of len(xyz)
-        (TPU lane width; keeps downstream tiles aligned).
+        (kept from the first build; unmeasured on an H100).
         """
         n = xyz.shape[0]
         if capacity is None:

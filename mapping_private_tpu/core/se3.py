@@ -105,10 +105,10 @@ def se3_inverse(T: jax.Array) -> jax.Array:
 def se3_apply(T: jax.Array, pts: jax.Array) -> jax.Array:
     """Apply (4,4) transform to (..., 3) points.
 
-    Written as broadcast arithmetic, NOT a matmul: on TPU a (N,3)@(3,3)
-    matmul lowers to bf16 MXU passes whose ~1e-3 absolute coordinate error
-    put a 1.2 mm floor under ICP convergence (exact f32 VPU math here
-    restores the ~1e-7 fixed point the same code reaches on CPU)."""
+    Written as broadcast arithmetic, NOT a matmul: a (N,3)@(3,3) product
+    may run at reduced precision (bf16 or TF32 passes), whose ~1e-3
+    absolute coordinate error puts a millimetre floor under ICP
+    convergence; exact f32 elementwise math keeps the ~1e-7 fixed point."""
     R = T[:3, :3]
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     out = jnp.stack(

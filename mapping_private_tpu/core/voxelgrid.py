@@ -1,6 +1,6 @@
 """VoxelGrid — dense fixed-shape voxelization of a PointCloud.
 
-TPU-native replacement for `pcl::VoxelGrid` as used by the reference's
+JAX-native replacement for `pcl::VoxelGrid` as used by the reference's
 C3-HLAC extractor (c3_hlac/include/c3_hlac/c3_hlac.h:102 `setVoxelFilter`)
 and sliding-box search (color_voxel_recognition/src/search.cpp).  The grid
 has *static* dims so everything downstream (integral tables, neighbor

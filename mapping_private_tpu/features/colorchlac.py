@@ -16,8 +16,8 @@ of three tensor contractions:
                   half-neighborhood offsets (117) or kept
                   per-δ (981)                                (36·|δ| dims)
 
-On TPU the neighbor sums become 13 shifted adds (S(v) = Σ_δ u(v+δ))
-followed by ONE einsum over the grid — MXU work, no per-voxel loop.
+Here the neighbor sums become 13 shifted adds (S(v) = Σ_δ u(v+δ))
+followed by ONE einsum over the grid — matmul work, no per-voxel loop.
 Subdivision histograms (used by the sliding-box detector) reshape the
 grid into (s,s,s) blocks and einsum per block; neighbor products are
 attributed to the *center* voxel's block exactly as the reference does
@@ -143,7 +143,7 @@ def colorchlac981(
       [501..968]  per-δ bin pairs            × 1
       [969..980]  bin center pairs           × 1
 
-    Offset-major ordering is the TPU-friendly native layout; use
+    Offset-major ordering is the native (contiguous) layout; use
     to_reference_layout_981 for the reference's interleaved bin order
     (c3_hlac_core.h:44-55) when interoperating with reference-extracted
     features/models, and rotate_feature_981 for the 90°-rotation group.
@@ -178,7 +178,7 @@ def _block_pair(a: jax.Array, b: jax.Array, bs: int) -> jax.Array:
     Reshape into (Bx,bs,By,bs,Bz,bs,6) and contract the intra-block axes
     with one einsum — the subdivision accumulation of the reference's
     computeColorCHLAC hist_idx binning (color_chlac.hpp:1464-1504) as
-    batched MXU work."""
+    batched matmul work."""
     a = _pad_to_blocks(a, bs)
     b = _pad_to_blocks(b, bs)
     X, Y, Z, C = a.shape

@@ -6,7 +6,7 @@ connected by a line; the sequence of voxel class labels the line crosses
 (sorted by distance, EMPTY for unoccupied cells) is histogrammed into a
 global descriptor.
 
-TPU formulation: P random occupied-voxel pairs at once; S equally-spaced
+Array formulation: P random occupied-voxel pairs at once; S equally-spaced
 samples along every line are gathered from the class grid in one indexed
 read; the descriptor accumulates, for each (start class, end class) pair,
 the histogram of crossed classes — a (C, C, C+1) tensor flattened to

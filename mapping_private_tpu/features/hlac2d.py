@@ -1,4 +1,4 @@
-"""2-D image HLAC features — the `hlac` package, TPU-native.
+"""2-D image HLAC features — the `hlac` package, JAX-native.
 
 Replaces the 6.7k-line hand-unrolled mask loops of
 hlac/include/hlac/HLAC.hpp with shift-and-multiply tensor reductions: each

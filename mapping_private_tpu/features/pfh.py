@@ -1,4 +1,4 @@
-"""Point Feature Histograms — `PointFeatureHistogram` TPU-native.
+"""Point Feature Histograms — `PointFeatureHistogram` JAX-native.
 
 Replaces cloud_algos/src/pfh.cpp (+ the pair-feature math of
 include/cloud_algos/pfh.h:105-235): per point, the star topology over its

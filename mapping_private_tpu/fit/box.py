@@ -1,4 +1,4 @@
-"""Robust oriented-box estimation — `RobustBoxEstimation` TPU-native.
+"""Robust oriented-box estimation — `RobustBoxEstimation` JAX-native.
 
 The reference's box fit ops (`box_fit_algo.h` / `box_fit2_algo.h`) migrated
 out of the snapshot but remain hard dependencies of the table-memory

@@ -1,4 +1,4 @@
-"""Cylinder RANSAC + triangulation — `CylinderEstimation` TPU-native.
+"""Cylinder RANSAC + triangulation — `CylinderEstimation` JAX-native.
 
 Replaces reference cloud_algos/src/cylinder_fit_algo.cpp: RANSAC over
 `SACModelCylinder` with threshold 0.01 on points+normals (:45-47), k=20

@@ -1,4 +1,4 @@
-"""Orientation RANSAC — `SACModelOrientation` TPU-native.
+"""Orientation RANSAC — `SACModelOrientation` JAX-native.
 
 Replaces ias_sample_consensus/include/ias_sample_consensus/sac_model_orientation.h
 (:59-213) + src/sac_model_orientation.cpp: find the dominant pair of
@@ -17,7 +17,7 @@ Reference semantics kept exactly:
   :141+), re-orthogonalized against the axis.
 
 The kd-tree in normal space becomes a dense (H, N) dot-product block — one
-MXU matmul scores every hypothesis against every normal.
+matmul scores every hypothesis against every normal.
 """
 from __future__ import annotations
 

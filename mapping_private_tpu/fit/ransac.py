@@ -4,7 +4,7 @@ The reference runs `sample_consensus::RANSAC::computeModel()` style loops:
 draw a minimal sample, fit, count inliers, repeat (fitSACPlane at
 table_object_detector_passive.cpp:415, cylinder_fit_algo.cpp:45-47, the
 hand-rolled loop in rotational_estimation.cpp:30-160, and the adaptive 2D
-fitters in hough_segmentation/include/ransac.hpp:75-191).  On TPU all H
+fitters in hough_segmentation/include/ransac.hpp:75-191).  Here all H
 hypotheses are drawn at once, every point is scored against every
 hypothesis as one (H, N) computation, and argmax picks the winner —
 no data-dependent trip counts.

@@ -1,4 +1,4 @@
-"""Rotational-surface RANSAC — `SACModelRotational` TPU-native.
+"""Rotational-surface RANSAC — `SACModelRotational` JAX-native.
 
 Replaces ias_sample_consensus/src/sac_model_rotational.cpp and the
 hand-rolled RANSAC loop in cloud_algos/src/rotational_estimation.cpp:30-160.
@@ -14,7 +14,7 @@ line-to-line distances between the axis and each point-normal line
 (functionToOptimizeAxis :176-223, lmdif1 call :267), and fits the contour
 polynomial by LLT least squares (EstimateContourFromSamples :357).
 
-TPU formulation: H hypotheses at once — each takes S sampled points with
+Array formulation: H hypotheses at once — each takes S sampled points with
 normals, builds the axis from closest-approach midpoints of normal lines
 (every normal of a surface of revolution intersects the axis), solves the
 (order+1)² contour normal equations per hypothesis with the unrolled

@@ -1,4 +1,4 @@
-"""External-system bridges — `mapping_to_cop` / jlo, TPU-framework-native.
+"""External-system bridges — `mapping_to_cop` / jlo, JAX-framework-native.
 
 Replaces the ROS service plumbing the reference uses to talk to the COP
 vision system and the `jlo` located-object pose registry

@@ -1,4 +1,4 @@
-"""Shelf-rack perception — `shopping_demo` TPU-native.
+"""Shelf-rack perception — `shopping_demo` JAX-native.
 
 Replaces shopping_demo/src/cluster_objects_on_racks.cpp:103-470 (cluster
 objects per shelf rack: band-filter the cloud at each rack height,

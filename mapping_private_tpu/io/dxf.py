@@ -1,4 +1,4 @@
-"""DXF mesh export — `vtk_exporter_service` TPU-framework-native.
+"""DXF mesh export — `vtk_exporter_service` JAX-framework-native.
 
 Replaces the hand-written writer of vtk_exporter_service/src/dxf_writer.cpp
 (1,654 LoC) behind the ObjectSaverService (src/vtk_to_dxf_exporter.cpp:

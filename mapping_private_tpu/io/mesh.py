@@ -6,7 +6,7 @@ Replaces:
   triangles (area-weighted).
 - the virtual-view core of `laser_camera_virtual_view_calibration`
   (cloud_tools, VTK offscreen render of a mesh into a virtual camera
-  image): here one call into the TPU depth rasterizer
+  image): here one call into the JAX depth rasterizer
   (realtime.render_depth_mesh) instead of a VTK render window.
 """
 from __future__ import annotations
@@ -113,7 +113,7 @@ def virtual_view_depth(
     fy: float = 525.0,
 ) -> np.ndarray:
     """Render the mesh from a virtual camera (world→camera pose (4,4));
-    the laser↔camera calibration view generator, on the TPU rasterizer."""
+    the laser↔camera calibration view generator, on the JAX rasterizer."""
     import jax.numpy as jnp
     from mapping_private_tpu.realtime.render import render_depth_mesh
 
@@ -137,7 +137,7 @@ def virtual_view_intensity(
 ) -> np.ndarray:
     """Render per-vertex intensities from a virtual camera — the
     render-to-image half of the cloud_tools mesh viewer (me.cpp:227-302:
-    GL_SMOOTH triangles → framebuffer → PPM), on the TPU rasterizer.
+    GL_SMOOTH triangles → framebuffer → PPM), on the JAX rasterizer.
     Returns (H, W) uint8 (clamped at 255 like the tool's maxval)."""
     import jax.numpy as jnp
     from mapping_private_tpu.realtime.render import render_intensity_mesh

@@ -1,4 +1,4 @@
-"""Semantic-map XML parsing — `xml_to_semantic_map` TPU-framework-native.
+"""Semantic-map XML parsing — `xml_to_semantic_map` JAX-framework-native.
 
 Replaces xml_to_semantic_map/include/xml_to_semantic_map/
 xml_semantic_map_parser.h (953 LoC of TinyXML walking) + the marker

@@ -1,4 +1,4 @@
-"""Sequential Hough-voting shape segmentation — `hough_segmentation` TPU-native.
+"""Sequential Hough-voting shape segmentation — `hough_segmentation` JAX-native.
 
 Replaces the reference's largest package (hough_segmentation/src/
 sequential_hough.cpp, 7.6k LoC): per scene it repeatedly (a) runs many
@@ -35,7 +35,7 @@ Discriminative machinery (the reference's hypothesis gates):
   clustered and emitted as PCA oriented boxes (:6357-6600,
   deal_with_the_rest_of_the_points :183).
 
-TPU formulation: the serial VRANSAC iterations become H parallel
+Array formulation: the serial VRANSAC iterations become H parallel
 hypotheses; parameter-space voting is a quantize + scatter-add where each
 hypothesis votes with its inlier count; the winning cell's hypotheses are
 averaged (the reference's cluster-mean model).  Curvature/RSD channels

@@ -1,4 +1,4 @@
-"""Layered 3-D reconstruction — the deprecated monolith, TPU-native.
+"""Layered 3-D reconstruction — the deprecated monolith, JAX-native.
 
 Replaces cloud_algos/deprecated/layered-3d-reconstruction.cpp (2.5k LoC):
 slice a room scan into horizontal z-layers, fit 2D lines and circles per
@@ -8,7 +8,7 @@ layers into boxes (`Line2Box` :1560) and cylinders (`Circle2Cylinder`
 supersedes this, but the layer-merge formulation survives as a cheap
 structured-scene reconstructor.
 
-TPU formulation: every layer's RANSAC fits run as vmapped hypothesis
+Array formulation: every layer's RANSAC fits run as vmapped hypothesis
 batches (fit.ransac); the short merge pass over layer fits is host logic.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Room-scale structural segmentation — `pointcloud_segmentation` TPU-native.
+"""Room-scale structural segmentation — `pointcloud_segmentation` JAX-native.
 
 Replaces pointcloud_segmentation/src/pointcloud_segmentation.cpp: floor =
 points below z_floor (segmentFloor :255+), ceiling = points above z_ceiling

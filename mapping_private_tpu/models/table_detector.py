@@ -1,6 +1,6 @@
 """Tabletop detector — the end-to-end perception slice, one jit.
 
-TPU re-design of `table_object_detector_passive`
+Array re-design of `table_object_detector_passive`
 (cloud_tools/src/table_object_detector_passive.cpp): z-band filter →
 voxel downsample (:372) → kNN normals (:392) → z-parallel normal gate
 (:396) → Euclidean clustering with normal-angle edges (:401) → per-cluster

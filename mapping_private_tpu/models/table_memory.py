@@ -1,4 +1,4 @@
-"""TableMemory — the persistent semantic world model, TPU-native.
+"""TableMemory — the persistent semantic world model, JAX-native.
 
 Replaces `dyn_obj_store/src/table_memory.cpp`: the stateful node that
 (a) matches each incoming table observation against known tables by
@@ -13,7 +13,7 @@ state (:1220-1260).
 
 Differences by design: polygon clipping is an in-process geometric
 routine (ops.hull.convex_polygon_intersection), the reconstruction chain
-is jitted TPU work, and — unlike the reference, which loses all tables on
+is jitted device work, and — unlike the reference, which loses all tables on
 crash (it only logs to table_memory.log, :219-231) — the memory
 checkpoints/restores its full state to an .npz archive.
 """

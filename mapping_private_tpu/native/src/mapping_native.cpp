@@ -2,7 +2,7 @@
 //
 // The reference's data loading is C++ (PCL's PCD reader, used by every
 // test/ executable, e.g. color_chlac/test/exampleGRSD.cpp and the
-// 1,760-file demo corpus).  This library gives the TPU framework the same
+// 1,760-file demo corpus).  This library gives the JAX framework the same
 // native-speed ingest: a multithreaded ASCII float tokenizer (the hot path
 // when reading the corpus' ascii PCDs), packed grid-hash key computation
 // (matching ops/neighbors.py's 30-bit cell key so host prep and device

@@ -1,6 +1,6 @@
 """Point-cloud filters — noise removal, box clipping, normal-direction gates.
 
-TPU-native equivalents of:
+JAX-native equivalents of:
 - `StatisticalNoiseRemoval` (reference cloud_algos/src/noise_removal.cpp:73-150):
   kNN mean-distance outlier rejection with a global mean ± alpha·std gate and
   a min-output-size validity check.  The reference's per-point kd-tree loop

@@ -1,13 +1,13 @@
-"""Neighbor search kernels — the TPU replacement for `cloud_kdtree::KdTreeANN`.
+"""Neighbor search kernels — the array replacement for `cloud_kdtree::KdTreeANN`.
 
 The reference pointer-chases an ANN kd-tree for every normal estimate,
 noise filter, region grow, and ICP correspondence (registration.cpp:174,
 noise_removal.cpp:73, region_growing.cpp:109, cylinder_fit_algo.cpp:146).
-On TPU we use two dense formulations instead:
+Here we use two dense formulations instead:
 
-1. ``knn_bruteforce`` — full (Q, N) squared-distance matrix via one MXU
-   matmul (‖a‖² + ‖b‖² − 2a·bᵀ) followed by ``lax.top_k``.  Exact, and
-   speed-of-light for the reference's cloud sizes (≤ ~50k points).
+1. ``knn_bruteforce`` — full (Q, N) squared-distance matrix via one
+   matmul (‖a‖² + ‖b‖² − 2a·bᵀ) followed by ``lax.top_k``.  Exact up to
+   f32 rounding, for the reference's cloud sizes (≤ ~50k points).
 
 2. ``build_grid_hash`` / ``knn_grid`` — grid-hash bucket gather for large
    clouds: points are sorted by a 30-bit packed cell key (10 bits per
@@ -37,12 +37,13 @@ _MASKB = (1 << _BITS) - 1
 
 
 def pairwise_sq_dists(a: jax.Array, b: jax.Array) -> jax.Array:
-    """(Q,3),(N,3) -> (Q,N) squared Euclidean distances via MXU matmul.
+    """(Q,3),(N,3) -> (Q,N) squared Euclidean distances via one matmul.
 
-    HIGHEST precision is load-bearing: TPU's default f32 matmul runs bf16
-    passes whose ~1e-2 absolute error mis-ranks near-tie neighbors
-    (measured: 89% wrong argmins on a 20k-point scan) — top_k/argmin over
-    these distances must see exact f32."""
+    HIGHEST precision is load-bearing: a reduced-precision product (bf16
+    or TF32 passes) carries ~1e-2 absolute error, which mis-ranks near-tie
+    neighbors — top_k/argmin over these distances must see exact f32.
+    Even at f32 the ‖a‖² + ‖b‖² − 2a·b form cancels at large coordinates;
+    the GPU kernel of ops.pallas_nn uses broadcast differences instead."""
     a2 = jnp.sum(a * a, axis=-1, keepdims=True)
     b2 = jnp.sum(b * b, axis=-1, keepdims=True).T
     cross = jax.lax.dot_general(
@@ -79,7 +80,7 @@ def knn_bruteforce(
         q = query_xyz.shape[0]
         d2 = d2.at[jnp.arange(q), jnp.arange(q)].set(_INF)
     if k == 1:
-        # argmin fuses far better than top_k on TPU for the NN case
+        # a plain argmin for the NN case instead of top_k
         idx = jnp.argmin(d2, axis=1)[:, None].astype(jnp.int32)
         neg = -jnp.take_along_axis(d2, idx, axis=1)
     else:
@@ -164,8 +165,8 @@ def nn_grid_1nn(
     lies within cell_size of the query and no stencil cell overflows
     cap_per_cell.  Unrolls the 27 stencil cells as a host loop of
     (Q, cap) chunks with PER-COORDINATE gathers — a single (Q, 27·cap, 3)
-    gather tile-pads the size-3 minor axis to 128 lanes on TPU and
-    explodes HBM ~42× (observed: 44 GB at Q=200k).
+    gather with a size-3 minor axis can be padded by the compiler to a
+    full vector width and multiply memory traffic.
 
     Returns (idx (Q,) int32 original row ids or −1, sq_dists (Q,)).
     """
@@ -218,7 +219,7 @@ def knn_grid(
     Returns (idx (Q,k) int32 original row ids or −1, sq_dists (Q,k)).
     """
     slots, valid = _candidate_gather(grid, query_xyz, cap_per_cell)  # (Q,C)
-    # per-coordinate gathers: a (Q,C,3) gather tile-pads 3→128 on TPU
+    # per-coordinate gathers: a (Q,C,3) gather can pad its 3-wide minor axis
     cx = grid.sorted_xyz[:, 0][slots]
     cy = grid.sorted_xyz[:, 1][slots]
     cz = grid.sorted_xyz[:, 2][slots]

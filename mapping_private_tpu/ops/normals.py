@@ -4,7 +4,7 @@ Replaces the reference's per-point kd-tree loop
 (`cloud_geometry::nearest::computePointNormal`, called from
 table_object_detector_passive.cpp:392 and cylinder_fit_algo.cpp:138-204)
 with one fused pass: kNN gather → masked covariance → analytic smallest
-eigenvector (Eberly's trigonometric method — pure VPU arithmetic, no
+eigenvector (Eberly's trigonometric method — pure elementwise arithmetic, no
 LAPACK-style iteration), then viewpoint-consistent sign flip.
 
 Curvature follows the reference's convention: λ₀ / (λ₀+λ₁+λ₂)

@@ -1,20 +1,25 @@
-"""Fused nearest-neighbor Pallas kernels — the ICP hot loop at speed of light.
+"""Exact brute-force 1-NN on the GPU — a running-argmin kernel written in
+Pallas for its Triton route.
 
-The XLA brute-force path materializes the (Q, N) squared-distance matrix
-in HBM (1.6 GB at 20k×20k) and then reduces it, and its row *gather* of
-the matched points is slower still (~6.4 ms measured at 20k).  These
-kernels tile the computation: each (TQ, TN) distance tile lives only in
-VMEM, is reduced to a per-row running (min, argmin) immediately
-(flash-attention-style output revisiting across the ref-tile grid axis),
-and — in the `nn_gather_pallas` variant — the matched target point and
-normal are *selected on the MXU* via a one-hot matmul, so no XLA gather
-ever touches HBM-resident indices.
+The plain XLA version (``ops.neighbors.knn_bruteforce``) takes its cross
+term from a K=3 matrix product whose (Q, N) float32 output goes to device
+memory before the argmin reads it back: 5.2 GB each way per sweep at
+20k × 65k, the scan-to-map shape.  This kernel never forms that matrix.
+Each program owns a tile of queries and walks a range of reference
+chunks, keeping a per-slot running (min, chunk) pair in registers; one
+reduction at the end picks each query's winner.  It reads the two clouds
+and writes (splits, Q) candidates, which a second XLA pass reduces.
 
-Padding convention: callers pad ref rows with +PAD_COORD and (for the
-gather variant) query rows with −PAD_COORD (core.cloud) so padded rows
-never win a min and padded queries match nothing.
+Exact: distances are broadcast differences in float32 (no
+‖a‖² + ‖b‖² − 2a·b cancellation), so near-ties rank as they do in float64
+up to a few ulps, and exact ties go to the lowest reference index, as in
+numpy's argmin.
 
-Replaces every kd-tree NN use on the ICP path (reference
+Padding convention: reference rows that are dead or padding carry
++PAD_COORD and dead queries carry −PAD_COORD (core.cloud), so padding
+never wins a min and dead queries match nothing that matters.
+
+Replaces the kd-tree NN on the ICP path (reference
 cloud_algos/src/registration.cpp:128 `nearestKSearch`).
 """
 from __future__ import annotations
@@ -25,313 +30,119 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_TQ = 1024
-_TN = 1024
-# smaller ref tile for the gather variant: its d2/hits/onehot temporaries
-# must fit VMEM alongside the (TQ,8) running-best buffers
-_TN_G = 512
-_HI = jax.lax.Precision.HIGHEST
+from mapping_private_tpu.core.cloud import PAD_COORD
 
-
-def _nn_kernel(q_ref, r_ref, idx_ref, sq_ref):
-    j = pl.program_id(1)
-
-    q = q_ref[:]  # (TQ, 8) — xyz padded to 8 lanes
-    r = r_ref[:]  # (TN, 8)
-    q2 = jnp.sum(q * q, axis=1, keepdims=True)  # (TQ, 1)
-    r2 = jnp.sum(r * r, axis=1, keepdims=True).T  # (1, TN)
-    # HIGHEST precision: TPU's default f32 matmul uses bf16 passes, whose
-    # ~1e-2 error breaks argmin on near-tie neighbor distances.
-    cross = jax.lax.dot_general(
-        q, r, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=_HI,
-    )  # (TQ, TN)
-    d2 = q2 + r2 - 2.0 * cross
-
-    tile_min = jnp.min(d2, axis=1)  # (TQ,)
-    tile_arg = jnp.argmin(d2, axis=1).astype(jnp.int32) + j * _TN
-
-    @pl.when(j == 0)
-    def _init():
-        sq_ref[:] = tile_min
-        idx_ref[:] = tile_arg
-
-    @pl.when(j > 0)
-    def _update():
-        better = tile_min < sq_ref[:]
-        sq_ref[:] = jnp.where(better, tile_min, sq_ref[:])
-        idx_ref[:] = jnp.where(better, tile_arg, idx_ref[:])
+# Block sizes are powers of two, as Triton requires.  Chosen on an H100
+# (`scripts/bench_nn_kernel.py --sweep`: within 10 % of the best of ten
+# shapes at 2k×20k, 20k×20k and 20k×65k); not re-tuned per shape.
+_TQ = 64  # query rows per program
+_TN = 64  # reference columns per loop step
+_NUM_WARPS = 4
+_NUM_STAGES = 2
+# Blocks run in parallel in no order, so the reference range is split
+# over a second grid axis when there are too few query tiles to fill the
+# card (an H100 has 132 SMs); a second pass takes the min over splits.
+# The split targets are unmeasured guesses.
+_MAX_SPLITS = 16
+_TARGET_PROGRAMS = 512
+# prepare_nn_ref_argmin pads N to this, so every split count divides it
+_REF_QUANTUM = _MAX_SPLITS * _TN
+_NO_INDEX = 2 ** 31 - 1
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def nn_pallas(
-    query_xyz: jax.Array, ref_xyz: jax.Array, interpret: bool = False
-) -> Tuple[jax.Array, jax.Array]:
-    """1-NN: (Q,3),(N,3) → (idx (Q,) int32, sq_dist (Q,) f32).
-
-    Assumes dead ref rows already carry PAD_COORD (PointCloud convention).
-    Q and N are padded internally to tile multiples.
-    """
-    from mapping_private_tpu.core.cloud import PAD_COORD
-
-    q_n = query_xyz.shape[0]
-    r_n = ref_xyz.shape[0]
-    qp = -(-q_n // _TQ) * _TQ
-    rp = -(-r_n // _TN) * _TN
-    # pad channel dim 3 → 8 (f32 sublane) and rows with the far sentinel
-    q = jnp.full((qp, 8), 0.0, jnp.float32).at[:q_n, :3].set(query_xyz)
-    r = jnp.full((rp, 8), PAD_COORD, jnp.float32).at[:r_n, :3].set(ref_xyz)
-    r = r.at[:r_n, 3:].set(0.0)
-
-    grid = (qp // _TQ, rp // _TN)
-    idx, sq = pl.pallas_call(
-        _nn_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((_TQ, 8), lambda i, j: (i, 0)),
-            pl.BlockSpec((_TN, 8), lambda i, j: (j, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((_TQ,), lambda i, j: (i,)),
-            pl.BlockSpec((_TQ,), lambda i, j: (i,)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((qp,), jnp.int32),
-            jax.ShapeDtypeStruct((qp,), jnp.float32),
-        ],
-        interpret=interpret,
-    )(q, r)
-    return idx[:q_n], sq[:q_n]
+def use_gpu_kernel() -> bool:
+    """The one platform decision: the Triton kernel runs on a GPU, the
+    plain XLA path everywhere else."""
+    return jax.default_backend() == "gpu"
 
 
-def _make_gather_kernel(dist: str, n_chunks: int):
-    """Grid is over query tiles ONLY; the full transposed ref/aux arrays
-    live in VMEM (8×N f32 — 640 KB even at 20k points) and an internal
-    fori_loop sweeps ref chunks.  A (i, j)-grid formulation with revisited
-    output blocks measured ~14 µs of per-step overhead × 800 steps; this
-    single-grid-axis version keeps the running best in loop carries.
+def _argmin_kernel(qx_ref, qy_ref, qz_ref, rx_ref, ry_ref, rz_ref,
+                   d_ref, i_ref, *, tq, tn, chunks_per_split):
+    c0 = pl.program_id(1) * chunks_per_split
+    qx = qx_ref[...][:, None]
+    qy = qy_ref[...][:, None]
+    qz = qz_ref[...][:, None]
 
-    dist: 'vpu' (exact f32 broadcasts), 'mxu' (HIGHEST matmul cross term,
-    f32-exact via bf16 passes), 'mxu_fast' (default-precision bf16 matmul
-    — approximate selection, exact gathered values; fine for ICP where a
-    2nd-nearest match on the same surface barely moves the point-to-plane
-    residual)."""
+    def step(c, carry):
+        best_d, best_c = carry
+        cols = pl.ds((c0 + c) * tn, tn)
+        dx = qx - rx_ref[cols][None, :]
+        dy = qy - ry_ref[cols][None, :]
+        dz = qz - rz_ref[cols][None, :]
+        d2 = dx * dx + dy * dy + dz * dz
+        better = d2 < best_d  # strict: the earlier chunk keeps ties
+        return (jnp.where(better, d2, best_d),
+                jnp.where(better, c0 + c, best_c))
 
-    def kernel(q_ref, rt_ref, nt_ref, sq_ref, qsel_ref, nsel_ref):
-        q = q_ref[:]  # (TQ, 8) row-major queries
-        q2 = jnp.sum(q * q, axis=1, keepdims=True)  # (TQ, 1)
-
-        def chunk_step(c, carry):
-            best_d2, best_q, best_n = carry
-            rt = rt_ref[:, pl.ds(c * _TN_G, _TN_G)]  # (8, TN)
-            if dist == "vpu":
-                dx = q[:, 0:1] - rt[0:1, :]
-                dy = q[:, 1:2] - rt[1:2, :]
-                dz = q[:, 2:3] - rt[2:3, :]
-                d2 = dx * dx + dy * dy + dz * dz
-            else:
-                prec = _HI if dist == "mxu" else jax.lax.Precision.DEFAULT
-                r2 = jnp.sum(rt * rt, axis=0, keepdims=True)  # (1, TN)
-                cross = jax.lax.dot_general(
-                    q, rt, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32, precision=prec,
-                )  # (TQ, TN)
-                d2 = q2 + r2 - 2.0 * cross
-
-            tile_min = jnp.min(d2, axis=1, keepdims=True)  # (TQ, 1)
-            hits = (d2 <= tile_min).astype(jnp.float32)
-            # average over exact ties (duplicated target points) — identical
-            # for true duplicates, harmless otherwise
-            onehot = hits / jnp.sum(hits, axis=1, keepdims=True)
-            # MXU-as-gather: one-hot rows select the matched target row;
-            # HIGHEST keeps selected coordinates f32-exact.
-            q_sel = jax.lax.dot_general(
-                onehot, rt, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=_HI,
-            )  # (TQ, 8)
-            nt = nt_ref[:, pl.ds(c * _TN_G, _TN_G)]
-            n_sel = jax.lax.dot_general(
-                onehot, nt, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=_HI,
-            )
-            better = tile_min < best_d2  # (TQ, 1)
-            return (
-                jnp.where(better, tile_min, best_d2),
-                jnp.where(better, q_sel, best_q),
-                jnp.where(better, n_sel, best_n),
-            )
-
-        init = (
-            jnp.full((_TQ, 1), jnp.inf, jnp.float32),
-            jnp.zeros((_TQ, 8), jnp.float32),
-            jnp.zeros((_TQ, 8), jnp.float32),
-        )
-        best_d2, best_q, best_n = jax.lax.fori_loop(0, n_chunks, chunk_step, init)
-        sq_ref[:] = best_d2[:, 0]
-        qsel_ref[:] = best_q
-        nsel_ref[:] = best_n
-
-    return kernel
-
-
-def prepare_nn_ref(
-    ref_xyz: jax.Array, ref_aux: jax.Array
-) -> Tuple[jax.Array, jax.Array]:
-    """Transpose + pad the reference set once (hoist out of ICP loops —
-    XLA does not reliably lift this out of a scan body)."""
-    from mapping_private_tpu.core.cloud import PAD_COORD
-
-    r_n = ref_xyz.shape[0]
-    rp = -(-r_n // _TN_G) * _TN_G
-    # refs are TRANSPOSED (8, N): per-coordinate rows broadcast against
-    # query columns without any in-kernel relayout
-    rt = jnp.full((8, rp), PAD_COORD, jnp.float32).at[:3, :r_n].set(ref_xyz.T)
-    rt = rt.at[3:, :r_n].set(0.0)
-    nt = jnp.zeros((8, rp), jnp.float32).at[:3, :r_n].set(ref_aux.T)
-    return rt, nt
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "dist"))
-def nn_gather_prepared(
-    query_xyz: jax.Array,
-    rt: jax.Array,
-    nt: jax.Array,
-    interpret: bool = False,
-    dist: str = "mxu",
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """1-NN with fused value gather against a prepare_nn_ref() reference.
-
-    (Q,3),(8,Np),(8,Np) → (sq_dist (Q,), matched_ref_xyz (Q,3),
-    matched_aux (Q,3)).  Query rows that are dead must carry −PAD_COORD.
-    """
-    from mapping_private_tpu.core.cloud import PAD_COORD
-
-    q_n = query_xyz.shape[0]
-    rp = rt.shape[1]
-    qp = -(-q_n // _TQ) * _TQ
-    q = jnp.full((qp, 8), -PAD_COORD, jnp.float32).at[:q_n, :3].set(query_xyz)
-    q = q.at[:q_n, 3:].set(0.0)
-
-    grid = (qp // _TQ,)
-    sq, qsel, nsel = pl.pallas_call(
-        _make_gather_kernel(dist, rp // _TN_G),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((_TQ, 8), lambda i: (i, 0)),
-            pl.BlockSpec((8, rp), lambda i: (0, 0)),
-            pl.BlockSpec((8, rp), lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((_TQ,), lambda i: (i,)),
-            pl.BlockSpec((_TQ, 8), lambda i: (i, 0)),
-            pl.BlockSpec((_TQ, 8), lambda i: (i, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((qp,), jnp.float32),
-            jax.ShapeDtypeStruct((qp, 8), jnp.float32),
-            jax.ShapeDtypeStruct((qp, 8), jnp.float32),
-        ],
-        interpret=interpret,
-    )(q, rt, nt)
-    return sq[:q_n], qsel[:q_n, :3], nsel[:q_n, :3]
-
-
-_TN_A = 2048  # argmin kernel ref-chunk (TQ=1024/TN=2048 won the TPU sweep)
-
-
-def _make_argmin_kernel(n_chunks: int):
-    """Argmin-only variant: per chunk, exact VPU broadcast distances and a
-    running (min, argmin) carry — no per-chunk value-gather matmuls (those
-    HIGHEST-precision one-hot products made the fused kernel ~2.3× slower
-    than this kernel + one XLA take of the winners).  Exact: measured
-    1.0 idx agreement with a CPU kd-tree at 20k points, where the XLA
-    dense path's bf16 matmul passes mis-rank 89% of near-tie queries."""
-
-    def kernel(q_ref, rt_ref, idx_ref, sq_ref):
-        qv = q_ref[:]  # (TQ, 8)
-
-        def step(c, carry):
-            best_d2, best_i = carry
-            rtc = rt_ref[:, pl.ds(c * _TN_A, _TN_A)]  # (8, TN)
-            dx = qv[:, 0:1] - rtc[0:1, :]
-            dy = qv[:, 1:2] - rtc[1:2, :]
-            dz = qv[:, 2:3] - rtc[2:3, :]
-            d2 = dx * dx + dy * dy + dz * dz
-            tmin = jnp.min(d2, axis=1, keepdims=True)
-            targ = jnp.argmin(d2, axis=1).astype(jnp.int32)[:, None] + c * _TN_A
-            better = tmin < best_d2
-            return (
-                jnp.where(better, tmin, best_d2),
-                jnp.where(better, targ, best_i),
-            )
-
-        init = (
-            jnp.full((_TQ, 1), jnp.inf, jnp.float32),
-            jnp.zeros((_TQ, 1), jnp.int32),
-        )
-        bd, bi = jax.lax.fori_loop(0, n_chunks, step, init)
-        sq_ref[:] = bd[:, 0]
-        idx_ref[:] = bi[:, 0]
-
-    return kernel
+    best_d, best_c = jax.lax.fori_loop(
+        0, chunks_per_split, step,
+        (jnp.full((tq, tn), jnp.inf, jnp.float32),
+         jnp.zeros((tq, tn), jnp.int32)))
+    d_min = jnp.min(best_d, axis=1)
+    col = best_c * tn + jax.lax.broadcasted_iota(jnp.int32, (tq, tn), 1)
+    d_ref[...] = d_min
+    i_ref[...] = jnp.min(
+        jnp.where(best_d == d_min[:, None], col, _NO_INDEX), axis=1)
 
 
 def prepare_nn_ref_argmin(ref_xyz: jax.Array) -> jax.Array:
-    """Transposed (8, N′) reference for nn_argmin_prepared (pad once)."""
-    from mapping_private_tpu.core.cloud import PAD_COORD
-
+    """(N, 3) → (3, N′) coordinate planes padded with +PAD_COORD to a
+    multiple of the split quantum.  Hoist it out of loops: XLA does not
+    reliably lift it out of a scan body."""
     r_n = ref_xyz.shape[0]
-    rp = -(-r_n // _TN_A) * _TN_A
-    rt = jnp.full((8, rp), PAD_COORD, jnp.float32).at[:3, :r_n].set(ref_xyz.T)
-    return rt.at[3:, :r_n].set(0.0)
+    rp = -(-r_n // _REF_QUANTUM) * _REF_QUANTUM
+    return jnp.full((3, rp), PAD_COORD, jnp.float32).at[:, :r_n].set(
+        ref_xyz.T.astype(jnp.float32))
+
+
+def _num_splits(n_query_tiles: int) -> int:
+    splits = 1
+    while splits < _MAX_SPLITS and n_query_tiles * splits < _TARGET_PROGRAMS:
+        splits *= 2
+    return splits
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
 def nn_argmin_prepared(
     query_xyz: jax.Array, rt: jax.Array, interpret: bool = False
 ) -> Tuple[jax.Array, jax.Array]:
-    """Exact 1-NN indices: (Q,3),(8,N′) → (idx (Q,) int32, sq (Q,) f32).
+    """Exact 1-NN: (Q, 3), (3, N′) planes → (idx (Q,) int32, sq (Q,) f32).
 
-    Dead queries must carry −PAD_COORD.  Gather winners with plain XLA
-    takes (cheap); this is the fast path ICP uses on TPU."""
-    from mapping_private_tpu.core.cloud import PAD_COORD
-
+    ``rt`` comes from prepare_nn_ref_argmin.  Dead queries must carry
+    −PAD_COORD; gather the winners with plain XLA takes."""
     q_n = query_xyz.shape[0]
     rp = rt.shape[1]
+    if rp % _REF_QUANTUM:
+        raise ValueError("rt must come from prepare_nn_ref_argmin")
     qp = -(-q_n // _TQ) * _TQ
-    q = jnp.full((qp, 8), -PAD_COORD, jnp.float32).at[:q_n, :3].set(query_xyz)
-    q = q.at[:q_n, 3:].set(0.0)
-    idx, sq = pl.pallas_call(
-        _make_argmin_kernel(rp // _TN_A),
-        grid=(qp // _TQ,),
-        in_specs=[
-            pl.BlockSpec((_TQ, 8), lambda i: (i, 0)),
-            pl.BlockSpec((8, rp), lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((_TQ,), lambda i: (i,)),
-            pl.BlockSpec((_TQ,), lambda i: (i,)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((qp,), jnp.int32),
-            jax.ShapeDtypeStruct((qp,), jnp.float32),
-        ],
+    q = jnp.full((3, qp), -PAD_COORD, jnp.float32).at[:, :q_n].set(
+        query_xyz.T.astype(jnp.float32))
+    n_qt = qp // _TQ
+    splits = _num_splits(n_qt)
+    kernel = functools.partial(
+        _argmin_kernel, tq=_TQ, tn=_TN,
+        chunks_per_split=rp // (_TN * splits))
+    q_spec = pl.BlockSpec((_TQ,), lambda i, s: (i,))
+    r_spec = pl.BlockSpec((rp,), lambda i, s: (0,))
+    out_spec = pl.BlockSpec((_TQ,), lambda i, s: (s * n_qt + i,))
+    d, i = pl.pallas_call(
+        kernel,
+        grid=(n_qt, splits),
+        in_specs=[q_spec] * 3 + [r_spec] * 3,
+        out_specs=[out_spec, out_spec],
+        out_shape=[jax.ShapeDtypeStruct((splits * qp,), jnp.float32),
+                   jax.ShapeDtypeStruct((splits * qp,), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES),
         interpret=interpret,
-    )(q, rt)
-    return idx[:q_n], sq[:q_n]
-
-
-def nn_gather_pallas(
-    query_xyz: jax.Array,
-    ref_xyz: jax.Array,
-    ref_aux: jax.Array,
-    interpret: bool = False,
-    dist: str = "mxu",
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Convenience wrapper: prepare_nn_ref + nn_gather_prepared.
-    In loops, call prepare_nn_ref once outside instead."""
-    rt, nt = prepare_nn_ref(ref_xyz, ref_aux)
-    return nn_gather_prepared(query_xyz, rt, nt, interpret=interpret, dist=dist)
+        name="nn_argmin",
+    )(q[0], q[1], q[2], rt[0], rt[1], rt[2])
+    # second pass over splits: argmin takes the first (lowest-index) split
+    d = d.reshape(splits, qp)
+    i = i.reshape(splits, qp)
+    win = jnp.argmin(d, axis=0)
+    idx = jnp.take_along_axis(i, win[None, :], axis=0)[0]
+    return idx[:q_n], jnp.min(d, axis=0)[:q_n]

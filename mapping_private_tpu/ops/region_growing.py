@@ -5,7 +5,7 @@ the BFS queue (`GrowFromPoint`) that expands a cluster via `radiusSearch`,
 optionally gated on (a) a channel value equality (`setExtraDimensionIgnore`,
 :42-43) and (b) pluggable grow-from / grow-into predicates (`behaviour_`).
 
-On TPU the BFS becomes connected components over the radius graph restricted
+Here the BFS becomes connected components over the radius graph restricted
 to *growable* points, with two refinements matching the reference semantics:
 
 - ``grow_mask``: only these points may join a region (grow_into gate +

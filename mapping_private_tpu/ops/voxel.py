@@ -1,6 +1,6 @@
 """Voxel-grid downsampling — sort-based segment means per occupied cell.
 
-TPU replacement for `cloud_geometry::downsamplePointCloud` (used at
+Array replacement for `cloud_geometry::downsamplePointCloud` (used at
 table_object_detector_passive.cpp:372) and `pcl::VoxelGrid`.  Points sort
 by a packed cell key; runs of equal keys become output slots (cumsum of
 run-start flags); coordinates and channels scatter-add into the
@@ -8,9 +8,8 @@ fixed-capacity output.  Everything static-shape and jit-compatible.
 
 Perf note: coordinates/channels ride THROUGH the sort as extra
 `lax.sort` operands instead of being gathered by `argsort` indices
-afterwards — on TPU two 1M-row random gathers cost more than widening
-the (already bitonic, already expensive) sort, measured 39 → 29 ms at
-1M points.
+afterwards: two 1M-row random gathers would cost more memory traffic
+than widening the sort.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ pose-graph BA in registration/pose_graph.py uses the same reduction over
 keyframe shards).
 
 This file is the template the driver's ``dryrun_multichip`` exercises on
-a virtual CPU mesh; on hardware the same code spans a pod slice over ICI.
+a virtual CPU mesh; on hardware the same code spans the cards of a host.
 """
 from __future__ import annotations
 
@@ -230,8 +230,7 @@ def make_sharded_map_icp_step_tiled(
     """Sharded scan-to-map ICP with the COMPACT-TILES NN engine per shard
     — the fast path for 64k–1M map points per device, replacing the
     brute-force (scan × M_local) matrices of make_sharded_map_icp_step
-    with the same occupied-tiles engine that does 1M×1M in 391 ms
-    single-chip (ops/tiled_nn.py, KERNELS.md).
+    with the single-card occupied-tiles engine (ops/tiled_nn.py).
 
     Each device buckets its own map slice ONCE per step call; the
     replicated scan re-buckets per GN sweep (it moves, and it's small);
@@ -383,7 +382,7 @@ def balance_map_shards(map_xyz, mask, tile_size: float, n_shards: int):
     The sharded tiled map step splits map rows into contiguous equal
     blocks; on a spatially-ordered skewed scene (corridor + dense
     cluster) that gives shards wildly different occupied-tile counts —
-    the sizing skew SCALING.json tracks (per-shard compute itself is
+    the sizing skew scripts/bench_scaling.py reports (per-shard compute itself is
     static-shaped and skew-immune, but global max_tiles must cover the
     WORST shard's occupancy).  This host-side helper returns a
     permutation that deals live points round-robin over shards in

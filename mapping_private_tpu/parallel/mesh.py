@@ -4,7 +4,8 @@ The reference has no device parallelism to mirror (ROS nodes on one
 machine; SURVEY §2.6) — this is the new scaling dimension: scan batches
 shard over ``dp`` (data parallel), points within a scan shard over ``sp``
 (spatial/sequence parallel), and voxel-map blocks shard over ``dp×sp``
-jointly.  Collectives ride ICI via psum/all_gather inserted by XLA.
+jointly.  XLA inserts the psum/all_gather collectives; on GPUs they run
+over NVLink through NCCL.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Scan acquisition — `ias_data_acquisition_ptu` TPU-framework-native.
+"""Scan acquisition — `ias_data_acquisition_ptu` JAX-framework-native.
 
 Replaces ptu_acquire_data.cpp: the ApproximateTime synchronization of
 point clouds with pan-tilt angles (`SyncPolicy`, :101), the sweep driver

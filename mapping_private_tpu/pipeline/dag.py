@@ -1,4 +1,4 @@
-"""Host-side pipeline DAG runner — the `cloud_algos` plugin layer TPU-native.
+"""Host-side pipeline DAG runner — the `cloud_algos` plugin layer JAX-native.
 
 Replaces the reference's topic-wired op graphs: the `CloudAlgo` ABC with
 init/pre/process/post/output and requires/provides channel contracts
@@ -10,7 +10,7 @@ output_topics}.
 
 Differences by design: ops run in ONE process against device arrays —
 "topics" are slots in a value dict, not TCP serialization boundaries; the
-whole chain stays on the TPU between stages.  Ops declaring jittable=True
+whole chain stays on the device between stages.  Ops declaring jittable=True
 are composed into a single traced program by `Pipeline.jitted()`.
 """
 from __future__ import annotations

@@ -17,7 +17,7 @@
   cut from the cloud.
 
 All ops are whole-image jittable array programs (the reference needed CUDA
-for per-pixel parallelism; on TPU these are trivial VPU elementwise work).
+for per-pixel parallelism; here these are plain elementwise work).
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
-"""Mesh depth rendering — the URDF self-filter renderer, TPU-native.
+"""Mesh depth rendering — the URDF self-filter renderer, JAX-native.
 
 Replaces realtime_perception's OpenGL FBO pipeline (`URDFRenderer::
 process_link/render`, src/urdf_renderer.cpp:67-135 + FrameBufferObject.cpp):
 the robot's link meshes are rasterized into a depth buffer that
 `background_subtract` compares against the live Kinect depth.
 
-TPU formulation: a gather-free barycentric rasterizer — triangles are
+Array formulation: a gather-free barycentric rasterizer — triangles are
 processed in fixed-size chunks under `lax.scan`; each chunk tests every
 pixel against every triangle in one broadcast (edge functions are three
 fused multiply-adds per pixel-triangle pair) and min-reduces the
@@ -176,7 +176,7 @@ def ray_box_tmin(
 ) -> jax.Array:
     """(R, B) slab-method entry distances of R rays against B AABBs.
 
-    The working TPU counterpart of realtime_perception's attic CUDA
+    The working JAX counterpart of realtime_perception's attic CUDA
     kernel (realtime_segmentation/src/attic/boxlist_ray_intersection.cu:
     52-101 hitbox — per-axis slab entry/exit with sign-ordered bounds;
     the upstream kernel's ray setup was left a TODO stub, so only its

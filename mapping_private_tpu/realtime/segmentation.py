@@ -1,4 +1,4 @@
-"""Real-time organized-cloud segmentation — `realtime_segmentation` TPU-native.
+"""Real-time organized-cloud segmentation — `realtime_segmentation` JAX-native.
 
 Replaces the pcl::cuda pipeline in realtime_segmentation/src/
 realtime_segmentation.cpp:73-300:
@@ -14,7 +14,7 @@ realtime_segmentation.cpp:73-300:
 - `mean_shift_normals` / `segment_normal_image` ← OpenCV GPU
   meanShiftSegmentation on the normal image (:259).
 
-Everything is dense image-lattice work — ideal VPU/MXU shape.
+Everything is dense image-lattice work.
 """
 from __future__ import annotations
 

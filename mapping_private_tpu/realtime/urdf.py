@@ -1,4 +1,4 @@
-"""URDF robot model → depth mask — `URDFRenderer` TPU-native.
+"""URDF robot model → depth mask — `URDFRenderer` JAX-native.
 
 Replaces realtime_perception's URDF pipeline (src/urdf_renderer.cpp:67-135
 `process_link/render` + the OpenGL FBO machinery): parse the robot

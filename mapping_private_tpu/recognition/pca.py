@@ -1,4 +1,4 @@
-"""PCA subspace learning — `color_voxel_recognition/src/pca.cpp` TPU-native.
+"""PCA subspace learning — `color_voxel_recognition/src/pca.cpp` JAX-native.
 
 The reference accumulates a correlation matrix feature-by-feature
 (PCA::addData, pca.cpp:48-69), normalizes, optionally subtracts the mean
@@ -8,7 +8,7 @@ outer product and adds Tikhonov regularization, then calls Eigen's
 optionally scaled by sqrt(variance ratio) ("multiple similarity",
 search.cpp readAxis :153-165).
 
-Here the whole batch is one `FᵀF` MXU matmul + `jnp.linalg.eigh`.
+Here the whole batch is one `FᵀF` matmul + `jnp.linalg.eigh`.
 File I/O matches the reference's binary/ascii format bit-for-bit
 (pca.cpp read :128-185 / write :189-243) so subspaces learned by either
 implementation interchange.

@@ -1,4 +1,4 @@
-"""Sliding-box subspace detection — `SearchObj` TPU-native.
+"""Sliding-box subspace detection — `SearchObj` JAX-native.
 
 Replaces color_voxel_recognition/src/search.cpp: the scene is divided into
 subdivisions (boxes of voxels), each carrying a (compressed) feature vector
@@ -10,9 +10,9 @@ axis-permutation modes (getRange :218-249, search :384-414); similarity =
 subspace (searchPart :450-461); results are rank-listed with overlap
 suppression (checkOverlap :327-356).
 
-TPU formulation: the triple z/y/x loop collapses into array slicing of the
+Array formulation: the triple z/y/x loop collapses into array slicing of the
 zero-padded integral table (every box origin at once), and the per-box
-mat-vec becomes ONE (X·Y·Z, D) × (D, M) MXU matmul per mode.  Overlap-
+mat-vec becomes ONE (X·Y·Z, D) × (D, M) matmul per mode.  Overlap-
 suppressed ranking of the handful of final candidates runs on the host,
 mirroring the reference's greedy semantics exactly.
 """
@@ -141,7 +141,7 @@ def _mode_scores(
     """Similarity grid for one mode: (X−rx+1, Y−ry+1, Z−rz+1)."""
     f = _box_sums(scene_feat, rx, ry, rz)  # (..., D)
     e = _box_sums(scene_exist[..., None], rx, ry, rz)[..., 0]
-    proj = jnp.einsum("xyzd,md->xyzm", f, axis_q)  # (..., M) one MXU matmul
+    proj = jnp.einsum("xyzd,md->xyzm", f, axis_q)  # (..., M) one matmul
     num = jnp.linalg.norm(proj, axis=-1)
     den = jnp.maximum(jnp.linalg.norm(f, axis=-1), 1e-20)
     sim = num / den

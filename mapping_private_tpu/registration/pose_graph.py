@@ -7,7 +7,7 @@ adds the capability the BASELINE north star asks for: keyframe poses tied
 by relative SE(3) measurements (ICP results, odometry, loop closures),
 relaxed by damped Gauss-Newton.
 
-TPU formulation: all E edge residuals r_e = log(Z_e⁻¹ T_i⁻¹ T_j) and
+Array formulation: all E edge residuals r_e = log(Z_e⁻¹ T_i⁻¹ T_j) and
 their Jacobians (forward-mode, batched via vmap — replacing the
 cminpack/Eigen sparse solvers a CPU stack would use) are computed at
 once; the 6K×6K normal equations assemble by scatter-adding 6×6 blocks
@@ -17,7 +17,7 @@ freedom is fixed by a strong prior on node 0.
 The sharded variant splits EDGES over the device mesh: each device builds
 partial (H, g) from its edge shard; one psum over the mesh assembles the
 full system; the solve is replicated.  This is the Schur-style
-reduce-then-solve pattern of distributed GN over ICI.
+reduce-then-solve pattern of distributed GN.
 """
 from __future__ import annotations
 

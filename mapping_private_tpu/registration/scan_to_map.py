@@ -7,7 +7,7 @@ against an accumulated voxel-deduplicated MAP (drift stops compounding
 through intermediate scans), keyframes enter a pose graph, and loop
 closures relax the whole trajectory (registration/pose_graph.py).
 
-TPU design: the map is a fixed-capacity masked point set (static shapes —
+Array design: the map is a fixed-capacity masked point set (static shapes —
 insertion is concat → voxel-key sort → unique-first compaction, all
 dense array ops), so the whole track step jits once and reruns at
 constant cost regardless of map fill.

@@ -82,7 +82,7 @@ class TestATEParity:
         ate_ref = float(ate_rmse(jnp.asarray(np.stack(ref_traj)),
                                  jnp.asarray(np.stack(gt))))
 
-        # ours: the same chained scan-to-scan protocol, TPU ICP
+        # ours: the same chained scan-to-scan protocol, JAX ICP
         poses = [np.eye(4, dtype=np.float32)]
         for k in range(1, len(scans)):
             tgt = jnp.asarray(scans[k - 1])
@@ -109,7 +109,7 @@ class TestATERealData:
     rigidly moved through a known trajectory (exact GT), each scan keeps
     an independent random half of the points (so consecutive scans are
     not the same point set), normals come from the data.  The
-    reference-faithful CPU chain and our TPU chain register the same
+    reference-faithful CPU chain and our JAX chain register the same
     sequence; ours must match or beat its ATE."""
 
     def _real_sequence(self, num_scans=5):

@@ -174,8 +174,8 @@ class TestShardedMapBigShards:
         """The compact-tiles NN engine inside the sharded map-ICP: 8
         devices × 65,536 map points/shard, each shard bucketing its own
         map slice once and running the occupied-tiles stencil engine —
-        the same engine that does 1M×1M in 391 ms single-chip
-        (KERNELS.md) — instead of brute-force distance matrices.  Two GN
+        the single-card big-cloud engine — instead of brute-force
+        distance matrices.  Two GN
         sweeps must match an exact f64 brute-force reference."""
         import jax
         import jax.numpy as jnp

@@ -1,8 +1,7 @@
 """nn_1nn front door: engine dispatch policy + cross-engine parity.
 
-Pins the dense-lattice compile-payload cliff (commit 4275e33: ~260k-cell
-lattices exceed the compile-service limit) as a FALLBACK, not a compiler
-error, and the size thresholds that route small problems to brute force
+Pins the dense-lattice cell limit (LATTICE_CELL_LIMIT) as a FALLBACK to
+the compact engine, not a compiler error, and the size thresholds that route small problems to brute force
 and big ones to the compact occupied-tiles engine."""
 import numpy as np
 import jax
@@ -81,12 +80,12 @@ class TestParity:
 
 class TestPayloadCliff:
     def test_lattice_above_cliff_falls_back(self):
-        # a lattice this fine has ~1.6e6 cells — far beyond the payload
+        # a lattice this fine has ~1.6e6 cells — far beyond the cell
         # limit; requesting 'lattice' must fall back to compact with a
-        # warning instead of dying in the compiler
+        # warning instead of building the huge program
         tgt = _cloud(4096, 3, extent=6.0)
         ones = np.ones(4096, bool)
-        with pytest.warns(UserWarning, match="payload"):
+        with pytest.warns(UserWarning, match="LATTICE_CELL_LIMIT"):
             i, s = nn_1nn(tgt, ones, tgt, ones, radius=0.05, engine="lattice")
         # self-NN: every live point finds itself at distance 0
         assert np.all(np.asarray(i)[np.asarray(i) >= 0] >= 0)
@@ -95,8 +94,8 @@ class TestPayloadCliff:
         np.testing.assert_allclose(np.asarray(s)[matched], 0.0, atol=1e-10)
 
     def test_cliff_constant_pins_measured_failure(self):
-        # measured: 43k cells compiled, ~260k cells exceeded the payload
-        # limit — the constant must sit between them
+        # the limit keeps the 43,740-cell lattice of the 200k/0.1 m case
+        # on the dense engine and sends ~260k-cell lattices to compact
         assert 43_740 < LATTICE_CELL_LIMIT < 260_000
 
 
